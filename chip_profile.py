@@ -1,8 +1,8 @@
 """Where a round's time goes on the card: a ``torch.profiler`` trace of the
-port's main path (FedNew and Q-FedNew(3 bits) at w8a width, as in
-``chip_smoke.py``).
+port's main path, FedNew and Q-FedNew(3 bits) at w8a width, with the
+configuration, data and solvers of ``chip_smoke.py``.
 
-    python3 chip_profile.py [--rounds 20]
+    python3 chip_profile.py
 
 Prints, per solver, the wall time of the profiled rounds, the device's busy
 time (the union of kernel intervals on the card), its idle share, and the
@@ -12,22 +12,18 @@ under ``chiprun_out/``. Needs a CUDA card.
 
 from __future__ import annotations
 
-import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 
 import torch
 
-ROOT = os.path.dirname(os.path.abspath(__file__))
-sys.path.insert(0, os.path.join(ROOT, "src"))
+# chip_smoke puts src/ on the import path
+from chip_smoke import ROOT, SEED, SOLVERS, make_problem, make_solver, phase_device
+from repro_torch.core import engine
 
-from repro_torch.core import engine, objectives  # noqa: E402
-from repro_torch.data import synthetic  # noqa: E402
-
-MU, RHO, ALPHA, BITS, SEED = 1e-3, 0.1, 0.03, 3, 42
+PROFILE_ROUNDS = 20
 
 
 def busy_us(events) -> float:
@@ -46,28 +42,32 @@ def busy_us(events) -> float:
     return total
 
 
-def profile(name, obj, data, rounds, out_dir, **hp):
-    solver = engine.get_solver(name, rho=RHO, alpha=ALPHA, hessian_period=1,
-                               **hp)
+def profile(name, obj, data, out_dir, **hp):
+    solver = make_solver(name, **hp)
     engine.run(solver, obj, data, 3, seed=SEED)  # warm-up: builds, caches
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        engine.run(solver, obj, data, rounds, seed=SEED)
+        engine.run(solver, obj, data, PROFILE_ROUNDS, seed=SEED)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise RuntimeError(f"the profiler recorded no device time for {name}")
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy = busy_us(kernels)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    rounds = PROFILE_ROUNDS
     row = {
-        "solver": name, "rounds": rounds, "wall_ms_per_round": wall_us / rounds / 1e3,
+        "solver": name, "rounds": rounds,
+        "wall_ms_per_round": wall_us / rounds / 1e3,
         "device_busy_ms_per_round": busy / rounds / 1e3,
-        "device_idle_share": 1.0 - busy / wall_us if wall_us else None,
+        "device_idle_share": 1.0 - busy / wall_us,
         "kernels_per_round": len(kernels) / rounds,
         "top_kernels_us_per_round": [[k, v / rounds] for k, v in top],
     }
@@ -77,24 +77,11 @@ def profile(name, obj, data, rounds, out_dir, **hp):
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--rounds", type=int, default=20)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_profile: no CUDA card")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60,
-    ).stdout.strip()
-    print(smi, flush=True)
+    smi = phase_device()
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    data = synthetic.make_dataset(synthetic.PAPER_DATASETS["w8a"], SEED,
-                                  device="cuda")
-    obj = objectives.logistic_regression(MU)
-    rows = [profile("fednew", obj, data, args.rounds, out_dir),
-            profile("q-fednew", obj, data, args.rounds, out_dir, bits=BITS)]
+    obj, data = make_problem()
+    rows = [profile(name, obj, data, out_dir, **hp) for name, hp in SOLVERS]
     with open(os.path.join(out_dir, "chip_profile.json"), "w") as f:
         json.dump({"nvidia_smi": smi, "rows": rows}, f, indent=1)
     return 0

@@ -13,13 +13,17 @@ Phases, each of which raises (exit code non-zero) on failure:
   4. drive the main path — 50 rounds each of FedNew and Q-FedNew(3 bits)
      on w8a-shaped logistic regression (60 clients x 829 samples x 267
      features) through ``engine.get_solver`` / ``engine.run`` — and check
-     the launch counts, the optimality gap and the exact bit ledger;
+     each run's own launch counts (set to 0 just before it, read just
+     after), the optimality gap and the exact bit ledger;
   5. time every kernel, its plain version and its library yardstick with
      CUDA events, and the main path's wall time per round.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
+The line before the last is ``{"kernels": [...]}``: there ``launches`` is
+the kernel's count in the Q-FedNew run, the path that runs every kernel,
+and ``launches_by_path`` each run's own count. The last line is
 ``{"ok": true, "device": {...}}``. Full results go to
-``chiprun_out/chip_smoke.json``.
+``chiprun_out/chip_smoke.json``. ``chip_profile.py`` imports this file's
+configuration.
 """
 
 from __future__ import annotations
@@ -58,6 +62,8 @@ FP32_FLOPS_PER_S = 67e12
 # The hparams of benchmarks/paper_fig2.py (w8a, r = 1).
 MU, RHO, ALPHA, BITS, ROUNDS, SEED = 1e-3, 0.1, 0.03, 3, 50, 42
 DAMPING = RHO + ALPHA
+# The main path's runs: registry name and the hparams beside RHO/ALPHA.
+SOLVERS = (("fednew", {}), ("q-fednew", {"bits": BITS}))
 CG_ITERS = 32
 EPS32 = float(np.finfo(np.float32).eps)
 
@@ -221,9 +227,20 @@ def phase_kernels(obj, data):
     return out, {"client_solve": cs_err, "stoch_quant": sq_err}, (H, g)
 
 
+def make_problem():
+    """The main path's objective and w8a-shaped data on the card."""
+    data = synthetic.make_dataset(synthetic.PAPER_DATASETS["w8a"], SEED,
+                                  device="cuda")
+    return objectives.logistic_regression(MU), data
+
+
+def make_solver(name, **hp):
+    return engine.get_solver(name, rho=RHO, alpha=ALPHA, hessian_period=1,
+                             **hp)
+
+
 def run_solver(name, obj, data, **hp):
-    solver = engine.get_solver(name, rho=RHO, alpha=ALPHA, hessian_period=1,
-                               **hp)
+    solver = make_solver(name, **hp)
     sync()
     t0 = time.perf_counter()
     state, m = engine.run(solver, obj, data, ROUNDS, seed=SEED)
@@ -239,19 +256,20 @@ def phase_main_path(obj, data):
     _, f_star = baselines.reference_optimum(obj, data64)
     f_star = f_star.item()
 
-    dispatch.reset_launches()
-    st_fn, m_fn, wall_fn = run_solver("fednew", obj, data)
-    after_fednew = dict(dispatch.launches)
-    st_q, m_q, wall_q = run_solver("q-fednew", obj, data, bits=BITS)
-    after_q = dict(dispatch.launches)
-    log(f"launches after FedNew: {after_fednew}; after Q-FedNew: {after_q}")
-
-    if after_fednew != {"client_solve": ROUNDS, "stoch_quant": 0}:
-        raise AssertionError(f"FedNew launches {after_fednew}, expected "
-                             f"{ROUNDS} client_solve and 0 stoch_quant")
-    if after_q != {"client_solve": 2 * ROUNDS, "stoch_quant": ROUNDS}:
-        raise AssertionError(f"Q-FedNew launches {after_q}, expected one of "
-                             f"each kernel per round")
+    # each run's own launch counts: set to 0 just before it, read just after
+    expected = {"fednew": {"client_solve": ROUNDS, "stoch_quant": 0},
+                "q-fednew": {"client_solve": ROUNDS, "stoch_quant": ROUNDS}}
+    runs, launches = {}, {}
+    for name, hp in SOLVERS:
+        dispatch.reset_launches()
+        runs[name] = run_solver(name, obj, data, **hp)
+        launches[name] = dict(dispatch.launches)
+        log(f"launches in the {name} run: {launches[name]}")
+        if launches[name] != expected[name]:
+            raise AssertionError(f"{name} launches {launches[name]}, "
+                                 f"expected {expected[name]}")
+    st_fn, m_fn, wall_fn = runs["fednew"]
+    st_q, m_q, wall_q = runs["q-fednew"]
 
     for label, m in (("FedNew", m_fn), ("Q-FedNew", m_q)):
         for field in ("loss", "grad_norm", "direction_norm",
@@ -279,7 +297,10 @@ def phase_main_path(obj, data):
 
     # the kernel route against the Cholesky route on the same card:
     # same trajectory to solver tolerance (tests/test_dispatch.py:169-171)
+    dispatch.reset_launches()
     _, m_ref, _ = run_solver("fednew", obj, data, backend="reference")
+    if any(dispatch.launches.values()):
+        raise AssertionError(f"reference route launched {dispatch.launches}")
     torch.testing.assert_close(m_fn.loss, m_ref.loss, rtol=1e-4, atol=1e-5)
     log("FedNew kernel route matches the reference (Cholesky) route")
 
@@ -291,7 +312,7 @@ def phase_main_path(obj, data):
         "q-fednew": {"gap": gap_q, "gap_last_f64": last_q,
                      "uplink_bits_per_client": bits_q[0],
                      "wall_s": wall_q, "wall_ms_per_round": wall_q / ROUNDS * 1e3},
-        "launches": after_q,
+        "launches": launches,
     }
 
 
@@ -318,7 +339,7 @@ def phase_times(obj, data, H, g):
 
     # wall time per round, host clock around whole synchronized runs
     walls = {}
-    for name, hp in (("fednew", {}), ("q-fednew", {"bits": BITS})):
+    for name, hp in SOLVERS:
         per_round = []
         for _ in range(3):
             per_round.append(run_solver(name, obj, data, **hp)[2] / ROUNDS * 1e3)
@@ -341,9 +362,7 @@ def main() -> int:
     smi = phase_device()
     build = phase_build()
 
-    spec = synthetic.PAPER_DATASETS["w8a"]
-    data = synthetic.make_dataset(spec, SEED, device="cuda")
-    obj = objectives.logistic_regression(MU)
+    obj, data = make_problem()
 
     checks, errs, (H, g) = phase_kernels(obj, data)
     main_path = phase_main_path(obj, data)
@@ -355,7 +374,9 @@ def main() -> int:
         kernels.append({
             "name": name, "route": info["route"], "source": info["source"],
             "replaces": info["replaces"],
-            "launches": main_path["launches"][name],
+            "launches": main_path["launches"]["q-fednew"][name],
+            "launches_by_path": {path: counts[name] for path, counts
+                                 in main_path["launches"].items()},
             "max_abs_err": errs[name],
             **{k: times[name][k] for k in
                ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},

@@ -119,13 +119,13 @@ class StochQuantCodec(Codec):
         return payload_bits(self.bits, d)
 
     def encode(self, u, y, state):
+        # The range R is transmitted; delta derives from it on both ends.
         if dispatch.uses_kernel(self.backend):
-            qr = quantize_with_uniforms(u, y, state, self.bits)
+            levels, R = quantize_with_uniforms(u, y, state, self.bits)
         else:
-            qr = quantization.quantize(u, y, state, self.bits)
-        # The range the client transmits; delta derives from it on both ends.
-        R = torch.amax(torch.abs(y - state), dim=-1)
-        return {"levels": qr.levels, "range": R}
+            levels = quantization.quantize(u, y, state, self.bits).levels
+            R = torch.amax(torch.abs(y - state), dim=-1)
+        return {"levels": levels, "range": R}
 
     def decode(self, wire, state):
         return _dequantize(wire["levels"], wire["range"], state, self.bits)

@@ -19,10 +19,8 @@ class SimpleState(NamedTuple):
     step: int
 
 
-def newton_init(obj: Objective, data: ClientDataset, x0=None) -> SimpleState:
-    d, dev = data.dim, data.device
-    x = (torch.zeros((d,), dtype=data.features.dtype, device=dev) if x0 is None
-         else torch.as_tensor(x0, dtype=data.features.dtype, device=dev))
+def newton_init(obj: Objective, data: ClientDataset) -> SimpleState:
+    x = torch.zeros((data.dim,), dtype=data.features.dtype, device=data.device)
     return SimpleState(x=x, step=0)
 
 

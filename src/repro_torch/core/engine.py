@@ -1,8 +1,8 @@
 """Federated execution engine of the port: the solver protocol, the
 registry and the host driver.
 
-Counterpart of ``repro.core.engine`` with ``mode="host"`` only: one Python
-loop over rounds, each round one ``step`` that enqueues its work on the
+Counterpart of ``repro.core.engine``'s ``mode="host"``: one Python loop
+over rounds, each round one ``step`` that enqueues its work on the
 device. Metrics stay on the device while the loop runs; they are stacked
 and read to the host once, at the end. Scan blocks (here: CUDA graphs of a
 block of rounds), client sharding and participation wait for later slices.
@@ -22,8 +22,8 @@ from repro_torch.core.objectives import ClientDataset, Objective
 class FederatedSolver:
     """The math of one federated method.
 
-    init(obj, data, seed=0, x0=None) -> state   round-0 state on the data's
-                                                device
+    init(obj, data, seed=0) -> state            round-0 state (x = 0) on the
+                                                data's device
     step(state, obj, data) -> (state, metrics)  one outer round; metrics is
                                                 a NamedTuple of scalar
                                                 device tensors
@@ -93,14 +93,12 @@ def solver_ledger(name: str, **hparams) -> SolverLedger:
 
 
 def run(solver: FederatedSolver, obj: Objective, data: ClientDataset,
-        rounds: int, *, seed: int = 0, x0=None, mode: str = "host"):
-    """Run ``rounds`` rounds; returns ``(final_state, metrics)`` with every
-    metric stacked to shape ``(rounds,)`` on the host."""
+        rounds: int, *, seed: int = 0):
+    """Run ``rounds`` rounds in the host loop; returns ``(final_state,
+    metrics)`` with every metric stacked to shape ``(rounds,)`` on the host."""
     if rounds <= 0:
         raise ValueError("rounds must be positive")
-    if mode != "host":
-        raise ValueError(f"unknown mode {mode!r}; the port runs mode='host'")
-    state = solver.init(obj, data, seed, x0)
+    state = solver.init(obj, data, seed)
     history = []
     for _ in range(rounds):
         state, m = solver.step(state, obj, data)

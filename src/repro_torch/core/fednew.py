@@ -104,13 +104,12 @@ def _factorize(obj: Objective, x, data, cfg: FedNewConfig) -> torch.Tensor:
 
 
 def init(obj: Objective, data: ClientDataset, cfg: FedNewConfig,
-         seed: int = 0, x0=None) -> FedNewState:
-    """Round-0 state on the dataset's device; ``seed`` seeds the generator
-    the Q-FedNew uniforms are drawn from."""
+         seed: int = 0) -> FedNewState:
+    """Round-0 state (x⁰ = 0) on the dataset's device; ``seed`` seeds the
+    generator the Q-FedNew uniforms are drawn from."""
     n, d, dev = data.n_clients, data.dim, data.device
     dtype = data.features.dtype
-    x = (torch.zeros((d,), dtype=dtype, device=dev) if x0 is None
-         else torch.as_tensor(x0, dtype=dtype, device=dev))
+    x = torch.zeros((d,), dtype=dtype, device=dev)
     return FedNewState(
         x=x,
         y=torch.zeros((d,), dtype=dtype, device=dev),
@@ -188,7 +187,7 @@ def solver(cfg: FedNewConfig):
     name = f"q-fednew({cfg.bits}b)" if cfg.bits else "fednew"
     return engine.FederatedSolver(
         name=name,
-        init=lambda obj, data, seed=0, x0=None: init(obj, data, cfg, seed, x0),
+        init=lambda obj, data, seed=0: init(obj, data, cfg, seed),
         step=lambda state, obj, data: step(state, obj, data, cfg),
         client_fields=("lam", "curv", "comm"),
     )
@@ -210,8 +209,8 @@ def ledger(cfg: FedNewConfig):
 
 
 def run(obj: Objective, data: ClientDataset, cfg: FedNewConfig, rounds: int,
-        seed: int = 0, x0=None):
-    """``rounds`` rounds through ``engine.run(mode="host")``."""
+        seed: int = 0):
+    """``rounds`` rounds through ``engine.run``'s host loop."""
     from repro_torch.core import engine
 
-    return engine.run(solver(cfg), obj, data, rounds, seed=seed, x0=x0)
+    return engine.run(solver(cfg), obj, data, rounds, seed=seed)

@@ -4,19 +4,13 @@
 CPU runs the plain version of ``ref.py``. ``quantize_with_uniforms`` is the
 codec-facing form (the port's ``quantize_with_keys``): it takes the round's
 uniforms instead of PRNG keys, reduces the per-client ranges outside the
-kernel, and returns a ``QuantResult``.
+kernel, and returns what goes on the wire: the levels and the ranges.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.quantization import (
-    QuantResult,
-    payload_bits,
-    payload_bits_array,
-    step_size,
-)
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.stoch_quant.ref import stoch_quant_ref
 from repro_torch.kernels.stoch_quant.stoch_quant import stoch_quant_triton
@@ -30,12 +24,9 @@ def stoch_quant(y, y_hat_prev, u, R, *, bits: int):
 
 
 def quantize_with_uniforms(u: torch.Tensor, y: torch.Tensor,
-                           y_hat_prev: torch.Tensor, bits: int) -> QuantResult:
+                           y_hat_prev: torch.Tensor, bits: int):
     """Batched eqs. 25-30 over a leading client axis with the round's
-    uniforms ``u`` (same shape as ``y``)."""
+    uniforms ``u`` (same shape as ``y``): ``(levels (n, N) int32, R (n,))``."""
     R = torch.amax(torch.abs(y - y_hat_prev), dim=-1)
-    levels, y_hat = stoch_quant(y, y_hat_prev, u, R, bits=bits)
-    delta = step_size(R, bits)
-    payload = payload_bits_array(payload_bits(bits, y.shape[-1]), y.device)
-    return QuantResult(y_hat=y_hat, levels=levels, delta=delta,
-                       payload_bits=payload.expand(y.shape[0]))
+    levels, _ = stoch_quant(y, y_hat_prev, u, R, bits=bits)
+    return levels, R
