@@ -6,28 +6,38 @@ Phases, each of which raises (exit code non-zero) on failure:
 
   1. find the card (no CUDA device -> exit non-zero, nothing else printed)
      and print its name and power limit as nvidia-smi reports them;
-  2. build the kernels from the sources in this checkout (nvcc for the
-     CUDA C++ kernel, Triton's compiler for the Triton one) and time it;
+  2. build the kernels from the sources in this checkout (one nvcc per
+     CUDA C++ source, all started together; Triton's compiler for the
+     Triton one) and time it;
   3. hold every kernel against its plain PyTorch version on the card, at
-     the main path's shapes and a few more;
-  4. drive the main path — 50 rounds each of FedNew and Q-FedNew(3 bits)
+     the main paths' shapes and a few more;
+  4. drive the FedNew path — 50 rounds each of FedNew and Q-FedNew(3 bits)
      on w8a-shaped logistic regression (60 clients x 829 samples x 267
      features) through ``engine.get_solver`` / ``engine.run`` — and check
      each run's own launch counts (set to 0 just before it, read just
      after), the optimality gap and the exact bit ledger;
-  5. time every kernel, its plain version and its library yardstick with
-     CUDA events, and the main path's wall time per round.
+  5. drive the serving path — gemma3-4b at its published widths and all 34
+     layers, random weights from a seed, batch 4, a 4096-token prompt and
+     16 greedy tokens through ``launch.serve.serve``, then its prefill and
+     its decode steps alone (``models.lm``) — and check finite logits, the
+     launch counts of each (29 swa_attention launches per prefill, one per
+     local layer; none per decode token), and decode against the full
+     forward;
+  6. time every kernel, its plain version and its library yardstick with
+     CUDA events, the FedNew path's wall time per round, and the serving
+     path's prefill and decode times.
 
 The line before the last is ``{"kernels": [...]}``: there ``launches`` is
-the kernel's count in the Q-FedNew run, the path that runs every kernel,
-and ``launches_by_path`` each run's own count. The last line is
-``{"ok": true, "device": {...}}``. Full results go to
-``chiprun_out/chip_smoke.json``. ``chip_profile.py`` imports this file's
-configuration.
+the kernel's count on the path that runs it (Q-FedNew for the FedNew
+kernels, the prefill for swa_attention) and ``launches_by_path`` every
+path's own count. The last line is ``{"ok": true, "device": {...}}``. Full
+results go to ``chiprun_out/chip_smoke.json``. ``chip_profile.py`` imports
+this file's configuration.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -38,14 +48,20 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+from repro_torch.configs.base import InputShape  # noqa: E402
+from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core import baselines, engine, objectives  # noqa: E402
-from repro_torch.data import synthetic  # noqa: E402
+from repro_torch.data import synthetic, tokens  # noqa: E402
+from repro_torch.device import generator  # noqa: E402
 from repro_torch.kernels import _build, dispatch, get_impl  # noqa: E402
 from repro_torch.kernels.client_solve.ref import client_solve_ref  # noqa: E402
+from repro_torch.launch.serve import serve  # noqa: E402
+from repro_torch.models import attention, lm, transformer  # noqa: E402
 
 # Each kernel's wrapper (on CUDA tensors: the kernel) and its plain version,
 # from the registry the main path's call sites resolve to.
@@ -53,11 +69,14 @@ client_solve = get_impl("client_solve")
 client_solve_plain = get_impl("client_solve", "plain")
 stoch_quant = get_impl("stoch_quant")
 stoch_quant_plain = get_impl("stoch_quant", "plain")
+swa_attention = get_impl("swa_attention")
+swa_attention_plain = get_impl("swa_attention", "plain")
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM rate and float32 rate
-# outside the tensor cores.
+# Published H100 SXM peaks (NVIDIA data sheet): HBM rate, float32 rate
+# outside the tensor cores, dense bf16 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 
 # The hparams of benchmarks/paper_fig2.py (w8a, r = 1).
 MU, RHO, ALPHA, BITS, ROUNDS, SEED = 1e-3, 0.1, 0.03, 3, 50, 42
@@ -66,6 +85,31 @@ DAMPING = RHO + ALPHA
 SOLVERS = (("fednew", {}), ("q-fednew", {"bits": BITS}))
 CG_ITERS = 32
 EPS32 = float(np.finfo(np.float32).eps)
+
+# The serving path: gemma3-4b at its published widths and depth.
+ARCH = "gemma3-4b"
+SERVE_BATCH, PROMPT, GEN = 4, 4096, 16
+# decode-vs-forward reference: the backbone over PROMPT + REF_EXTRA tokens (a
+# multiple of the 1024-token attention chunk), read at position PROMPT
+REF_EXTRA = 1024
+# the f32 gate runs one pattern repeat (5 local + 1 global layers)
+GATE_LAYERS = 6
+# f32 decode vs full forward at full width: the same arithmetic, sums in
+# another order over d = 2560..10240; an indexing or cache fault is O(1)
+GATE_F32_RTOL = 1e-3
+# The swa_attention checks: (label, B, S, H, Hkv, window, dtype, cap); Dh 256.
+SWA_CASES = (
+    ("main bf16", 4, PROMPT, 8, 4, 1024, torch.bfloat16, None),
+    ("main f32", 4, PROMPT, 8, 4, 1024, torch.float32, None),
+    ("cap 50 bf16", 4, PROMPT, 8, 4, 1024, torch.bfloat16, 50.0),
+    ("ragged S=1000 bf16", 4, 1000, 8, 4, 1024, torch.bfloat16, None),
+    ("G=1 bf16", 4, PROMPT, 8, 8, 1024, torch.bfloat16, None),
+)
+HEAD_DIM = 256
+# where each kernel's `launches` is read: a path that runs it
+KERNEL_PATH = {"client_solve": "q-fednew", "stoch_quant": "q-fednew",
+               "swa_attention": "serve-prefill"}
+PATHS = ("fednew", "q-fednew", "serve-prefill", "serve-decode")
 
 
 def log(msg: str) -> None:
@@ -101,9 +145,9 @@ def device_ms(fn, reps: int = 60, warmup: int = 5) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def bound_ms(n_bytes: float, n_flops: float):
+def bound_ms(n_bytes: float, n_flops: float, flops_per_s=FP32_FLOPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = n_flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -125,9 +169,11 @@ def phase_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script needs a CUDA card")
-    # The reference numbers of this script are full float32.
+    # The reference numbers of this script are full float32, and bf16
+    # products are reduced in float32 (cuBLAS may otherwise reduce in bf16).
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -257,8 +303,10 @@ def phase_main_path(obj, data):
     f_star = f_star.item()
 
     # each run's own launch counts: set to 0 just before it, read just after
-    expected = {"fednew": {"client_solve": ROUNDS, "stoch_quant": 0},
-                "q-fednew": {"client_solve": ROUNDS, "stoch_quant": ROUNDS}}
+    none = {name: 0 for name in dispatch.registered_kernels()}
+    expected = {"fednew": {**none, "client_solve": ROUNDS},
+                "q-fednew": {**none, "client_solve": ROUNDS,
+                             "stoch_quant": ROUNDS}}
     runs, launches = {}, {}
     for name, hp in SOLVERS:
         dispatch.reset_launches()
@@ -358,6 +406,247 @@ def phase_times(obj, data, H, g):
     return times
 
 
+def swa_inputs(gen, B, S, H, Hkv, dtype):
+    """Random q (B,S,H,Dh), k and v (B,S,Hkv,Dh) on the card."""
+    return [torch.randn((B, S, h, HEAD_DIM), generator=gen, device="cuda")
+            .to(dtype) for h in (H, Hkv, Hkv)]
+
+
+def phase_swa_checks():
+    """swa_attention vs its plain version. float32: rtol/atol 1e-5 (the same
+    arithmetic, sums in another order). bf16: both sides widen to float32
+    and accumulate there, so only the final rounding differs: max |Δ| within
+    one bf16 ulp of the largest output, 2**-7 max|out|."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 2)
+    rows, main_err = [], None
+    for label, B, S, H, Hkv, window, dtype, cap in SWA_CASES:
+        q, k, v = swa_inputs(gen, B, S, H, Hkv, dtype)
+        got = swa_attention(q, k, v, window=window, cap=cap)
+        want = swa_attention_plain(q, k, v, window=window, cap=cap)
+        sync()
+        err = (got.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        f32 = dtype == torch.float32
+        tol = "rtol=atol=1e-5" if f32 else 2.0 ** -7 * scale
+        row = {"case": label, "shape": [B, S, H, Hkv, HEAD_DIM],
+               "window": window, "cap": cap, "dtype": str(dtype),
+               "max_abs_err": err, "max_abs_plain": scale, "tol": tol}
+        log(f"swa_attention {label}: {json.dumps(row)}")
+        rows.append(row)
+        if f32:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        elif not err <= tol:
+            raise AssertionError(f"swa_attention disagrees with its plain "
+                                 f"version: {row}")
+        if main_err is None:
+            main_err = err
+    return rows, main_err
+
+
+def make_serving(device="cuda"):
+    """gemma3-4b at full width and depth with seeded random weights, and
+    the token batch (B, PROMPT + REF_EXTRA) whose first PROMPT tokens are
+    the prompt."""
+    cfg = get_config(ARCH)
+    params = lm.init_params(cfg, generator(torch.device(device), SEED), device)
+    batch = tokens.make_batch(
+        cfg, InputShape("serve", PROMPT + REF_EXTRA, SERVE_BATCH, "prefill"),
+        SEED, device=device)
+    return cfg, params, batch["tokens"]
+
+
+def finite(name, x):
+    if not torch.isfinite(x).all():
+        raise AssertionError(f"{name}: non-finite values")
+
+
+def counted(path, expected, counts, fn):
+    """Run ``fn`` with every launch count set to 0 just before it, record
+    the counts just after under ``path``, and check them."""
+    dispatch.reset_launches()
+    out = fn()
+    sync()
+    counts[path] = dict(dispatch.launches)
+    want = {name: 0 for name in dispatch.registered_kernels()}
+    want.update(expected)
+    if counts[path] != want:
+        raise AssertionError(f"{path} launches {counts[path]}, expected {want}")
+    return out
+
+
+def greedy(logits):
+    return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+
+
+def decode_vs_forward(cfg, params, toks):
+    """Prefill PROMPT tokens, decode token PROMPT; the reference is the
+    backbone over all PROMPT + REF_EXTRA tokens read at index PROMPT.
+    Returns max |Δlogit| / max |logit|."""
+    _, caches = lm.prefill(params, cfg, {"tokens": toks[:, :PROMPT]},
+                           max_len=PROMPT + 1)
+    pos = torch.full((toks.shape[0],), PROMPT, dtype=torch.int32,
+                     device=toks.device)
+    got, _ = lm.decode_step(params, cfg, toks[:, PROMPT:PROMPT + 1], pos, caches)
+    feats, _ = lm.backbone(params, cfg, {"tokens": toks})
+    ref = lm.logits_fn(params, cfg, feats[:, PROMPT:PROMPT + 1])
+    finite("decode logits", got)
+    finite("forward logits", ref)
+    return ((got.float() - ref.float()).abs().max()
+            / ref.float().abs().max()).item()
+
+
+def phase_serve(cfg, params, toks, counts):
+    """The serving path at full width and depth: ``serve`` once, then its
+    prefill and decode steps alone, each with its own launch counts."""
+    B = toks.shape[0]
+    prompt = toks[:, :PROMPT].contiguous()
+    n_local = transformer.layer_kinds(cfg).count("local")
+    kinds = {"local": n_local, "global": cfg.n_layers - n_local}
+    log(f"serving {cfg.name}: d {cfg.d_model}, {cfg.n_heads} heads / "
+        f"{cfg.n_kv_heads} kv x {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size}, window {cfg.window}, layers {kinds}, "
+        f"params {sum(p.numel() for p in _leaves(params)):,}; batch {B}, "
+        f"prompt {PROMPT}, gen {GEN}")
+
+    t0 = time.perf_counter()
+    ids = counted("serve", {"swa_attention": n_local}, counts,
+                  lambda: serve(cfg, params, prompt, GEN))
+    serve_s = time.perf_counter() - t0
+    if ids.shape != (B, GEN):
+        raise AssertionError(f"serve returned {tuple(ids.shape)}")
+
+    # the same path in its two parts: prefill (timed), then decode steps
+    prefill_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        logits, caches = counted(
+            "serve-prefill", {"swa_attention": n_local}, counts,
+            lambda: lm.prefill(params, cfg, {"tokens": prompt},
+                               max_len=PROMPT + GEN))
+        prefill_s.append(time.perf_counter() - t0)
+        finite("prefill logits", logits)
+    out, ok = [greedy(logits)], []
+
+    def decode_all():  # no host read inside: finiteness is checked after
+        for i in range(GEN - 1):
+            pos = torch.full((B,), PROMPT + i, dtype=torch.int32,
+                             device=toks.device)
+            step_logits, _ = lm.decode_step(params, cfg, out[-1][:, None],
+                                            pos, caches)
+            ok.append(torch.isfinite(step_logits).all())
+            out.append(greedy(step_logits))
+
+    t0 = time.perf_counter()
+    counted("serve-decode", {}, counts, decode_all)
+    decode_s = time.perf_counter() - t0
+    if not torch.stack(ok).all():
+        raise AssertionError("decode logits: non-finite values")
+    steps_ids = torch.stack(out, dim=1).cpu()
+    if not torch.equal(steps_ids, ids):
+        raise AssertionError("serve's ids differ from its prefill + decode "
+                             "steps run alone")
+    log(f"launches: {json.dumps({p: counts[p] for p in ('serve', 'serve-prefill', 'serve-decode')})}")
+    log(f"generated ids (row 0): {ids[0].tolist()}")
+
+    # decode against the full forward: gated in float32 at one pattern
+    # repeat (5 local + 1 global layers), reported in bf16 at full depth
+    cfg_f32 = dataclasses.replace(cfg, n_layers=GATE_LAYERS,
+                                  activation_dtype="float32")
+    params_f32 = dict(params, blocks=params["blocks"][:GATE_LAYERS])
+    rel_f32 = decode_vs_forward(cfg_f32, params_f32, toks)
+    rel_bf16 = decode_vs_forward(cfg, params, toks)
+    log(f"decode vs forward at position {PROMPT}: float32 {GATE_LAYERS} "
+        f"layers {rel_f32!r} (gate {GATE_F32_RTOL}), bf16 {cfg.n_layers} "
+        f"layers {rel_bf16!r} (finiteness gated)")
+    if not rel_f32 <= GATE_F32_RTOL:
+        raise AssertionError(f"decode disagrees with the forward: {rel_f32}")
+
+    n_decoded = GEN - 1
+    matmul = torch.backends.cuda.matmul
+    return {
+        "arch": cfg.name, "batch": B, "prompt": PROMPT, "gen": GEN,
+        "precision": {  # as phase_device set them
+            "matmul.allow_tf32": matmul.allow_tf32,
+            "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+            "matmul.allow_bf16_reduced_precision_reduction":
+                matmul.allow_bf16_reduced_precision_reduction},
+        "ids_row0": ids[0].tolist(), "serve_wall_s_first_call": serve_s,
+        "prefill_s_runs": prefill_s,
+        "prefill_ms_median": statistics.median(prefill_s) * 1e3,
+        "decode_ms_per_token": decode_s / n_decoded * 1e3,
+        "decode_tokens_per_s": B * n_decoded / decode_s,
+        "decode_vs_forward_rel": {"float32_6_layers": rel_f32,
+                                  "bf16_full_depth": rel_bf16},
+        "swa_launches_per_prefill": counts["serve-prefill"]["swa_attention"],
+    }
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def swa_bound(B, S, H, Hkv, window, dtype):
+    """Least time for the band: 4 B H Dh sum_q min(q+1, window) operations
+    at the bf16 tensor-core peak, or q, k, v and out moved once."""
+    keys = sum(min(i + 1, window) for i in range(S))
+    n_flops = 4 * B * H * HEAD_DIM * keys
+    elt = torch.tensor([], dtype=dtype).element_size()
+    n_bytes = elt * B * S * HEAD_DIM * (2 * H + 2 * Hkv)
+    return bound_ms(n_bytes, n_flops, BF16_FLOPS_PER_S)
+
+
+def phase_serve_times(cfg, serving):
+    """The kernel at the prefill's shape beside its bound, its plain version
+    and the SDPA yardstick; a global layer's plain attention; the kernel's
+    share of prefill."""
+    _, B, S, H, Hkv, window, dtype, _ = SWA_CASES[0]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 3)
+    q, k, v = swa_inputs(gen, B, S, H, Hkv, dtype)
+    ms = device_ms(lambda: swa_attention(q, k, v, window=window), reps=20)
+    plain = device_ms(lambda: swa_attention_plain(q, k, v, window=window),
+                      reps=5, warmup=1)
+    # yardstick: one SDPA call with an explicit sliding-window mask, kv
+    # repeated to H heads, heads-major layout (prepared outside the timing)
+    pos = torch.arange(S, device="cuda")
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+    qt, kt, vt = (x.transpose(1, 2) for x in
+                  (q, k.repeat_interleave(H // Hkv, dim=2),
+                   v.repeat_interleave(H // Hkv, dim=2)))
+    lib = device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                           attn_mask=mask),
+                    reps=10)
+    lib_err = (F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+               .transpose(1, 2).float()
+               - swa_attention(q, k, v, window=window).float()).abs().max().item()
+    bound = swa_bound(B, S, H, Hkv, window, dtype)
+    glob = device_ms(lambda: attention.causal_attention(q, k, v, cfg, window=None,
+                                                        cap=None),
+                     reps=5, warmup=1)
+    n_local = serving["swa_launches_per_prefill"]
+    n_global = cfg.n_layers - n_local
+    prefill_ms = serving["prefill_ms_median"]
+    times = {
+        "swa_attention": {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                          "bound_ms": bound[0], "bound_by": bound[1],
+                          "library_max_abs_diff": lib_err},
+        "global_attention_ms": glob,
+        "prefill_ms": prefill_ms,
+        "kernel_share_of_prefill": n_local * ms / prefill_ms,
+        "global_attention_share_of_prefill": n_global * glob / prefill_ms,
+        "decode_ms_per_token": serving["decode_ms_per_token"],
+        "decode_tokens_per_s": serving["decode_tokens_per_s"],
+    }
+    for key, val in times.items():
+        log(json.dumps({"time": key, "value": val}))
+    return times
+
+
 def main() -> int:
     smi = phase_device()
     build = phase_build()
@@ -365,8 +654,16 @@ def main() -> int:
     obj, data = make_problem()
 
     checks, errs, (H, g) = phase_kernels(obj, data)
+    checks["swa_attention"], errs["swa_attention"] = phase_swa_checks()
     main_path = phase_main_path(obj, data)
     times = phase_times(obj, data, H, g)
+
+    counts = dict(main_path["launches"])
+    with torch.inference_mode():
+        cfg, params, toks = make_serving()
+        serving = phase_serve(cfg, params, toks, counts)
+        del params
+        times.update(phase_serve_times(cfg, serving))
 
     kernels = []
     for name in dispatch.registered_kernels():
@@ -374,9 +671,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": info["route"], "source": info["source"],
             "replaces": info["replaces"],
-            "launches": main_path["launches"]["q-fednew"][name],
-            "launches_by_path": {path: counts[name] for path, counts
-                                 in main_path["launches"].items()},
+            "launches": counts[KERNEL_PATH[name]][name],
+            "launches_by_path": {path: counts[path][name] for path in PATHS},
             "max_abs_err": errs[name],
             **{k: times[name][k] for k in
                ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
@@ -386,7 +682,8 @@ def main() -> int:
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"nvidia_smi": smi, "device": device, "build": build,
-                   "checks": checks, "main_path": main_path, "times": times,
+                   "checks": checks, "main_path": main_path,
+                   "serving": serving, "launches": counts, "times": times,
                    "kernels": kernels, "torch": torch.__version__,
                    "cuda": torch.version.cuda}, f, indent=1)
     log(smi)

@@ -1,8 +1,8 @@
 """Carry-over from the JAX package: its arrays, as numpy, into the port's
 objects on a given device (the CUDA card unless another is named).
 
-The tests build datasets and states with the JAX package, pass them
-through numpy, and continue or compare in the port.
+The tests build datasets, states and LM params with the JAX package, pass
+them through numpy, and continue or compare in the port.
 """
 
 from __future__ import annotations
@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.fednew import FedNewState
 from repro_torch.core.objectives import ClientDataset
 from repro_torch.device import DeviceLike, generator, resolve_device
@@ -46,3 +47,28 @@ def fednew_state_from_numpy(x, y, lam, curv, comm, step: int, *,
 def uniforms_from_numpy(u, *, device: DeviceLike = None) -> torch.Tensor:
     """One round's (n, d) uniforms."""
     return _tensor(u, resolve_device(device))
+
+
+def _tree_to(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def lm_params_from_numpy(tree: dict, cfg: ModelConfig, *,
+                         device: DeviceLike = None) -> dict:
+    """``jax.tree.map(np.asarray, repro.models.lm.init_params(cfg, key))``
+    -> the port's LM params. JAX stacks each pattern position's layers over
+    the repeats (``blocks.scan[p][leaf][r]``) and keeps the remainder in
+    ``blocks.tail[t]``; the port's ``blocks`` is one list in layer order:
+    repeat r, position p is layer ``r * len(pattern) + p``, then the tail."""
+    dev = resolve_device(device)
+    scan, tail = tree["blocks"]["scan"], tree["blocks"]["tail"]
+    if len(scan) != len(cfg.layer_pattern) or len(tail) != cfg.tail_len:
+        raise ValueError(f"params do not match {cfg.name}'s layer pattern")
+    blocks = [_tree_to(scan[p], lambda a, r=r: _tensor(a[r], dev))
+              for r in range(cfg.pattern_repeats)
+              for p in range(len(cfg.layer_pattern))]
+    blocks += [_tree_to(t, lambda a: _tensor(a, dev)) for t in tail]
+    rest = {k: v for k, v in tree.items() if k != "blocks"}
+    return {"blocks": blocks, **_tree_to(rest, lambda a: _tensor(a, dev))}

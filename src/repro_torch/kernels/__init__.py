@@ -1,9 +1,13 @@
-"""Hand-written Hopper kernels for the FedNew hot loops.
+"""Hand-written Hopper kernels of the port, one per Pallas TPU kernel
+ported so far.
 
-  client_solve  CUDA C++ (``csrc/client_solve.cu``): fixed-iteration CG for
-                FedNew's eq. 9 damped SPD solve, one block per client
-  stoch_quant   Triton (``stoch_quant/stoch_quant.py``): Q-FedNew's
-                eqs. 25-30 stochastic quantizer over a (clients, blocks) grid
+  client_solve   CUDA C++ (``csrc/client_solve.cu``): fixed-iteration CG for
+                 FedNew's eq. 9 damped SPD solve, one block per client
+  stoch_quant    Triton (``stoch_quant/stoch_quant.py``): Q-FedNew's
+                 eqs. 25-30 stochastic quantizer over a (clients, blocks) grid
+  swa_attention  CUDA C++ (``csrc/swa_attention.cu``): causal sliding-window
+                 attention forward of the LM's local layers, one block per
+                 (batch, head, 64 queries)
 
 Each kernel package pairs the kernel with a plain PyTorch version
 (``ref.py``) and a wrapper (``ops.py``) that routes by the tensor's device
@@ -36,4 +40,12 @@ dispatch.register_kernel(
     route="triton",
     source="src/repro_torch/kernels/stoch_quant/stoch_quant.py",
     replaces="src/repro/kernels/stoch_quant/stoch_quant.py:80",
+)
+dispatch.register_kernel(
+    "swa_attention",
+    kernel="repro_torch.kernels.swa_attention.ops:swa_attention",
+    plain="repro_torch.kernels.swa_attention.ref:swa_attention_plain",
+    route="cuda",
+    source="src/repro_torch/kernels/csrc/swa_attention.cu",
+    replaces="src/repro/kernels/swa_attention/swa_attention.py:101",
 )

@@ -1,4 +1,4 @@
-"""Routing for the port's two hot-loop kernels.
+"""Routing for the port's kernels.
 
 Counterpart of ``repro.kernels.dispatch``. The route is decided by where the
 tensors lie, never by an environment variable and never by whether a
@@ -9,7 +9,8 @@ kernel builds:
   CPU tensor   the kernel's plain PyTorch version runs (the tests' route).
 
 Each kernel's ``ops.py`` wrapper makes that choice with
-:func:`kernel_route`; ``core.fednew`` and ``comm.codecs`` call the wrappers.
+:func:`kernel_route`; ``core.fednew``, ``comm.codecs`` and
+``models.attention`` call the wrappers.
 
 Config-level backends (``FedNewConfig.backend``):
 

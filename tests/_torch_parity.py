@@ -37,6 +37,13 @@ def t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, copy=True))
 
 
+def tree_t(tree):
+    """A nested dict of numpy / JAX arrays -> the same dict of CPU tensors."""
+    if isinstance(tree, dict):
+        return {k: tree_t(v) for k, v in tree.items()}
+    return t(tree)
+
+
 def small_problem(n=4, m=32, d=20, seed=0):
     """A small w8a-like problem built by the JAX package: (jax objective,
     jax data, port objective, port data on the CPU)."""

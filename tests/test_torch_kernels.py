@@ -26,6 +26,8 @@ from repro_torch.kernels.client_solve import ops as cs_ops
 from repro_torch.kernels.client_solve.ref import client_solve_plain, client_solve_ref
 from repro_torch.kernels.stoch_quant import ops as sq_ops
 from repro_torch.kernels.stoch_quant.ref import stoch_quant_ref
+from repro_torch.kernels.swa_attention import ops as swa_ops
+from repro_torch.kernels.swa_attention.ref import swa_attention_plain
 
 DAMPING = 0.13  # alpha + rho of the w8a runs
 EPS32 = float(np.finfo(np.float32).eps)
@@ -158,8 +160,27 @@ def test_quantize_with_uniforms_equals_reference_route():
                                rtol=0, atol=0)
 
 
+# ---------------------------------------------------------------------------
+# swa_attention (its plain version against JAX: tests/test_torch_attention.py)
+# ---------------------------------------------------------------------------
+
+
+def test_swa_kernel_matches_plain_on_card():
+    """The CUDA kernel against its plain version (chip_smoke.py runs the
+    same check at gemma3-4b's full shape)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the swa_attention kernel has no CPU route")
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        rng = np.random.default_rng(3)
+        q, k, v = (torch.from_numpy(np32(rng.standard_normal((2, 200, h, 64))))
+                   .to("cuda", dtype) for h in (4, 2, 2))
+        got = swa_ops.swa_attention(q, k, v, window=64, cap=20.0)
+        want = swa_attention_plain(q, k, v, window=64, cap=20.0)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
 def test_registry_pairs_each_kernel_with_its_plain_version():
-    assert registered_kernels() == ("client_solve", "stoch_quant")
+    assert registered_kernels() == ("client_solve", "stoch_quant", "swa_attention")
     for name in registered_kernels():
         info = dispatch.kernel_info(name)
         assert info["route"] in ("cuda", "triton")

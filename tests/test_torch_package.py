@@ -15,8 +15,12 @@ import pytest
 import torch
 
 from repro_torch import convert
-from repro_torch.data import synthetic
+from repro_torch.configs.base import InputShape
+from repro_torch.configs.registry import get_config
+from repro_torch.data import synthetic, tokens
 from repro_torch.kernels import _build
+from repro_torch.launch import serve
+from repro_torch.models import lm
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
@@ -68,6 +72,30 @@ def test_entry_points_default_to_cuda():
         convert.uniforms_from_numpy(np.zeros((2, 4), np.float32))
     assert synthetic.make_dataset(spec, device="cpu").features.shape == (2, 3, 4)
 
+    cfg = get_config("gemma3-4b").reduced()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm.init_params(cfg, torch.Generator())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tokens.make_batch(cfg, InputShape("s", 8, 2, "prefill"), 0)
+    params = lm.init_params(cfg, torch.Generator(), "cpu")
+    tree = {"embed": {"table": np.zeros((4, 2), np.float32)},
+            "blocks": {"scan": [{}, {}], "tail": []},
+            "final_norm": {"scale": np.zeros(2, np.float32)}}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.lm_params_from_numpy(tree, cfg)
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "gemma3-4b", "--reduced", "--gen", "2"],
+        cwd=REPO, env={**os.environ, "CUDA_VISIBLE_DEVICES": "",
+                       "PYTHONPATH": str(REPO / "src")},
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0 and "no CUDA device" in proc.stderr
+    # the serving loop itself runs where its tensors lie
+    prompt = tokens.make_batch(cfg, InputShape("s", 8, 2, "prefill"), 0,
+                               device="cpu")["tokens"]
+    with torch.inference_mode():
+        assert serve.serve(cfg, params, prompt, 2).shape == (2, 2)
+
 
 def test_make_dataset_is_seeded_and_shaped():
     spec = synthetic.PAPER_DATASETS["a1a"]
@@ -85,7 +113,7 @@ def test_make_dataset_is_seeded_and_shaped():
 def test_kernel_sources_build_from_the_checkout():
     """Every CUDA source is found in the package's csrc/, and its library
     goes to the ignored build directory, named by the source's hash."""
-    assert _build.sources() == ("client_solve",)
+    assert _build.sources() == ("client_solve", "swa_attention")
     path = _build._library_path("client_solve")
     assert path.parent == REPO / "build" / "repro_torch_kernels"
     assert path.name.startswith("client_solve-") and path.suffix == ".so"
@@ -105,10 +133,11 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 def test_build_reuses_a_library_of_the_same_source(monkeypatch, tmp_path):
     """A library named by the source's hash is not built again."""
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
-    lib = _build._library_path("client_solve")
-    lib.write_bytes(b"")
+    libs = {name: _build._library_path(name) for name in _build.sources()}
+    for lib in libs.values():
+        lib.write_bytes(b"")
     monkeypatch.setattr(_build, "find_nvcc", lambda: pytest.fail("rebuilt"))
-    assert _build.build() == {"client_solve": lib}
+    assert _build.build() == libs
 
 
 @pytest.mark.parametrize("where", ["checkout", "alone"])
