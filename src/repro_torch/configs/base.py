@@ -5,8 +5,9 @@ The port's own copy of ``repro.configs.base`` (the port imports nothing of
 ``repro``). Field names, defaults, the derived properties and ``reduced()``
 are those of the JAX package, so a test can compare the two configs field
 by field. Fields of families the port does not serve yet (MoE, recurrent,
-xLSTM, encoder-decoder) and the federation block arrive with those paths;
-there is no ``use_pallas``: the port's kernel route is the tensors' device.
+xLSTM, encoder-decoder, VLM patches) and the federation block arrive with
+those paths; there is no ``use_pallas``: the port's kernel route is the
+tensors' device.
 
 Layer stacking: ``layer_pattern`` is a short tuple of block kinds that
 repeats to ``n_layers`` (gemma3's 5 local : 1 global); the remainder
@@ -45,9 +46,6 @@ class ModelConfig:
     embed_scale: bool = True  # multiply embeddings by sqrt(d_model) (gemma)
     mlp_act: str = "silu"  # silu (llama) | gelu (gemma geglu, whisper)
     tie_embeddings: bool = True
-    # --- VLM (internvl): patch prefix ahead of the text tokens ---
-    vit_embed_dim: int = 0
-    n_patches: int = 0
     # --- numerics ---
     norm_eps: float = 1e-6
     param_dtype: str = "float32"
@@ -92,8 +90,6 @@ class ModelConfig:
             head_dim=d_model // heads,
             d_ff=2 * d_model if self.d_ff else 0,
             vocab_size=512,
-            vit_embed_dim=min(self.vit_embed_dim, 64) if self.vit_embed_dim else 0,
-            n_patches=min(self.n_patches, 8) if self.n_patches else 0,
             window=min(self.window, 16) if self.window else 0,
             attn_q_chunk=32,
             attn_kv_chunk=32,

@@ -16,13 +16,6 @@ from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 
 
-def S_text(cfg: ModelConfig, S: int) -> int:
-    """VLM: patch prefix + text tokens fill the assigned seq_len budget."""
-    if cfg.vit_embed_dim:
-        return S - cfg.n_patches
-    return S
-
-
 def _markov_tokens(rng: np.random.Generator, batch: int, seq: int, vocab: int):
     """Cheap structured stream: tokens follow x_{t+1} = (a x_t + b + noise) % V
     per row. Returns the stream plus each row's multiplier ``a`` (the row's
@@ -40,12 +33,10 @@ def _markov_tokens(rng: np.random.Generator, batch: int, seq: int, vocab: int):
 def make_batch(cfg: ModelConfig, shape: InputShape, seed: int, step: int = 0,
                *, device: DeviceLike = None) -> dict:
     """tokens and targets (B, S) int32, loss_mask (B, S) float32."""
-    if cfg.vit_embed_dim:
-        raise NotImplementedError("VLM patch inputs are not ported yet")
     dev = resolve_device(device)
     rng = np.random.default_rng(np.random.SeedSequence([seed, step]))
     B = shape.global_batch
-    S = S_text(cfg, shape.seq_len)
+    S = shape.seq_len
     stream, _ = _markov_tokens(rng, B, S, cfg.vocab_size)
     stream = torch.from_numpy(stream.astype(np.int32))
     return {

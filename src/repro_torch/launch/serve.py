@@ -29,12 +29,11 @@ def serve(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     CPU tensor."""
     B, S = tokens.shape
     logits, caches = lm.prefill(params, cfg, {"tokens": tokens},
-                                max_len=S + gen + cfg.n_patches)
+                                max_len=S + gen)
     tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
     out = [tok]
-    offset = cfg.n_patches if cfg.vit_embed_dim else 0
     for i in range(gen - 1):
-        pos = torch.full((B,), offset + S + i, dtype=torch.int32,
+        pos = torch.full((B,), S + i, dtype=torch.int32,
                          device=tokens.device)
         logits, caches = lm.decode_step(params, cfg, tok[:, None], pos, caches)
         tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
